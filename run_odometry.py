@@ -97,6 +97,9 @@ def run_synthetic(n_frames: int, quiet: bool):
 
 
 def main(argv):
+    from stereo_dso_g2o_tpu.runtime import compile_cache
+
+    compile_cache.enable()
     args = parse_args(argv)
     quiet = args.get("quiet", "0") == "1"
 

@@ -1,7 +1,7 @@
-"""TPU-native stereo direct-SLAM engine (stereo-DSO capability set, built from scratch).
+"""Stereo direct-SLAM engine in JAX (stereo-DSO capability set, built from scratch).
 
-A brand-new JAX/XLA/Pallas implementation of the full stereo-dso-g2o pipeline
-(see SURVEY.md for the reference structural analysis at /root/reference):
+A brand-new JAX/XLA implementation of the full stereo-dso-g2o pipeline
+(see SURVEY.md for the reference structural analysis):
 
 - coarse-to-fine photometric pose tracking over 6-level image pyramids
 - static-stereo + temporal epipolar depth tracing for immature points
@@ -20,9 +20,10 @@ __version__ = "0.1.0"
 import jax as _jax
 
 # The windowed-BA Hessian stitching and the small dense solves need f32
-# matmuls: on TPU the default bf16 MXU path destroys the solver (measured
-# ATE 2.2 mm -> 85 mm in round 1; full divergence on long runs). Set the
-# global default only if the user hasn't chosen one explicitly.
+# matmuls: reduced-precision matmul inputs destroy the solver (full
+# divergence on long runs). On the H100 "highest" rules out TF32 for every
+# matmul, not only the solver's. Set the global default only if the user
+# hasn't chosen one explicitly.
 if _jax.config.jax_default_matmul_precision is None:
     _jax.config.update("jax_default_matmul_precision", "highest")
 

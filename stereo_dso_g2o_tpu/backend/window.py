@@ -28,7 +28,6 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from stereo_dso_g2o_tpu.config import (
     CPARS,
@@ -39,6 +38,7 @@ from stereo_dso_g2o_tpu.config import (
     Settings,
 )
 from stereo_dso_g2o_tpu.utils import se3
+from stereo_dso_g2o_tpu.utils.pytree import dataclass
 
 # point status (PointHessian::PtStatus, HessianBlocks.h:374+)
 PT_INACTIVE = 0
@@ -59,7 +59,7 @@ STATE_SCALE = _np.asarray(
 )
 
 
-@struct.dataclass
+@dataclass
 class Window:
     # -- frames --
     frame_valid: jax.Array  # (F,) bool

@@ -1,4 +1,4 @@
-"""Global configuration for the TPU stereo-DSO engine.
+"""Global configuration for the stereo-DSO engine.
 
 Replaces the reference's mutable-global flag system (`util/settings.{h,cpp}`,
 defaults at settings.cpp:29-158) with an immutable dataclass that is hashable,
@@ -46,7 +46,7 @@ class Settings:
 
     Field defaults mirror the reference defaults in util/settings.cpp:29-158
     (the fork's modified values, noted where they differ from upstream DSO).
-    Capacity fields (`*_cap`) are new: the TPU design uses fixed-capacity
+    Capacity fields (`*_cap`) are new: the accelerator design uses fixed-capacity
     masked arrays instead of dynamic point sets, so every dynamic count in the
     reference becomes a static capacity here.
     """
@@ -92,13 +92,13 @@ class Settings:
 
     # -- re-tracking (settings.cpp:79) --
     re_track_threshold: float = 1.5
-    # TPU-native robustness superset of the reference's sequential retry
+    # Robustness superset of the reference's sequential retry
     # ladder (FullSystem.cpp:441-505): always evaluate ALL motion-model
     # hypotheses in the fused frame program (they are a vmapped batch axis —
     # nearly free) and keep the lowest-residual one, instead of engaging the
     # extra hypotheses only when try-0 regresses past re_track_threshold.
     # True: evaluate the whole motion-hypothesis ladder every frame as ONE
-    # vmapped cascade (a batch axis is nearly free on TPU and the fused frame
+    # vmapped cascade (a batch axis costs little and the fused frame
     # program keeps a single static shape); False: reference-style lax.cond
     # that skips the ladder when try-0 passes the accept gate.
     always_retry_ladder: bool = True
@@ -128,12 +128,10 @@ class Settings:
     # round 2) still acts at level k. The reference's own abort rule prunes
     # losing tries at coarse levels the same way (CoarseTracker.cpp
     # :1032-1033 via trackNewCoarse's min-res ladder).
-    # Default 2 per the round-5 on-chip A/B (200-frame KITTI-res corridor,
-    # post quality-fix): k=2 gives rel-trans 0.811 % / rel-rot 0.0030 /
-    # 46 KFs vs 0.461 % / 0.0027 / 47 KFs for the full ladder — both >4x
-    # inside the reference envelope — for ~17 ms saved on EVERY frame (the
-    # measured 5-try tax, PERF.md round 5). Set 0 for the accuracy-maximal
-    # full ladder.
+    # Default 2 trades some rel-trans accuracy (still inside the reference
+    # envelope on the 200-frame KITTI-res corridor) for the 5-try tax on
+    # every frame; its cost on the GPU is not measured yet. Set 0 for the
+    # accuracy-maximal full ladder.
     ladder_fine_levels: int = 2
 
     # -- residual count gates (settings.cpp:82-83) --
@@ -183,7 +181,7 @@ class Settings:
     stereo_depth_max: float = 50.0
     nonkey_stereo_depth_max: float = 70.0
 
-    # -- TPU capacities (new: fixed-size SoA arrays replace dynamic sets) --
+    # -- capacities (new: fixed-size SoA arrays replace dynamic sets) --
     immature_cap: int = 2048  # immature points per keyframe
     active_cap: int = 2048  # active (PointHessian) points per keyframe
     # candidates optimized per activation pass: bounds the 1-dof LM batch
@@ -195,20 +193,11 @@ class Settings:
     # the per-frame traces (temporal + 2x static stereo) compact live rows to
     # this fixed batch first. Overflow rows simply keep their interval until
     # a later frame (bounded, burst-only deviation).
-    # Compact trace-pool lanes. The epipolar kernel costs ~3 us/LANE
-    # (PERF.md round 5), so this cap is a first-order fps knob. Live
-    # immature counts at the reference-healthy KF cadence (47/200 frames,
-    # round-5 bench obs): p50 3082, max 4748 — 5120 covers the observed
-    # max with margin; overflow rows gracefully keep their interval until
-    # a later frame. (Round 4's 6144 was sized against the inflated
-    # 68-KF cadence whose seeding pushed the pool to 5682.)
+    # Compact trace-pool lanes. The trace's cost is per lane, so this cap
+    # is an fps knob. Live immature counts at the bench's KF cadence
+    # (47/200 frames) peaked below 4800, so 5120 covers them with margin;
+    # overflow rows keep their interval until a later frame.
     trace_cap: int = 5120
-    # Precision of the pallas trace kernel's interpolation dots:
-    # "split" = hi/lo bf16 split (3 passes, second-order residual
-    # truncation on TPU), "highest" = Precision.HIGHEST (6 passes, exact
-    # f32). The kernel is ~0.6 ms either way; see trace.default_backend's
-    # round-5 A/B notes.
-    trace_dot_precision: str = "split"
     # per-KF eigenvalue/Hessian-diag/nullspace dump into the stats stream
     # (setting_logStuff's printEigenValLine, FullSystem.cpp:1689-1768)
     log_eigenvalues: bool = False
@@ -217,10 +206,9 @@ class Settings:
     # -- distributed BA (BASELINE config 5) --
     # >1: the windowed-BA GN loop runs as a shard_map program over a
     # dist_ba_shards-device mesh (point/residual axis sharded, camera system
-    # psum-reduced over ICI). Opt-in: meant for the ENLARGED window
+    # psum-reduced across devices). Opt-in: meant for the ENLARGED window
     # (max_frames ~15, window_cap 16, active_cap >=8192) whose residual cube
-    # exceeds one chip's comfort zone; the standard F=8 window is faster on
-    # one chip. Requires dist_ba_shards <= len(jax.devices()) and the point
+    # outgrows one device; the standard F=8 window stays on one device. Requires dist_ba_shards <= len(jax.devices()) and the point
     # cap divisible by the shard count.
     dist_ba_shards: int = 0
 

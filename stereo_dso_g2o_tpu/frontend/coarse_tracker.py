@@ -1,6 +1,6 @@
 """Coarse tracker: direct pyramid image alignment against the last keyframe.
 
-TPU-native rebuild of CoarseTracker::setCoarseTrackingRef /
+JAX rebuild of CoarseTracker::setCoarseTrackingRef /
 trackNewestCoarse (CoarseTracker.cpp:807-1069) with the legacy LM semantics
 (the fork's g2o detour replaced by the batched kernels in ops/tracker_ops.py),
 plus the retry-ladder pose initialization of FullSystem::trackNewCoarse

@@ -1,7 +1,7 @@
 """Fused per-frame device programs.
 
 The reference's per-frame path is a C++ call tree with free function calls;
-the TPU-native equivalent keeps the WHOLE frame step inside one XLA program —
+the JAX equivalent keeps the WHOLE frame step inside one XLA program —
 host code only branches on the keyframe decision and the (rare) retry ladder
 (SURVEY.md par. 7 hard parts: "host-device round-trips in the per-frame
 loop"). This matters doubly here because every host<->device synchronization
@@ -360,7 +360,6 @@ def tracking_ref_inputs(
         usj, vsj, ids * 0.1, ids * 1.9, color, weights_p, gradH, eth,
         jnp.full((n,), 10000.0), jnp.full((n,), trace_ops.IPS_UNINITIALIZED, jnp.int32),
         K0, baseline, dI_right0, mode_right=True, settings=s,
-        backend=trace_ops.default_backend(),
     )
     lr_good = res_lr.status == trace_ops.IPS_GOOD
     u_r = jnp.clip(res_lr.last_uv[:, 0], 8.0, Wd - 9.0)
@@ -372,7 +371,6 @@ def tracking_ref_inputs(
         u_r, v_r, ids * 0.1, ids * 1.9, color_r, weights_r, gradH_r, eth_r,
         jnp.full((n,), 10000.0), jnp.full((n,), trace_ops.IPS_UNINITIALIZED, jnp.int32),
         K0, baseline, dI_new0, mode_right=False, settings=s,
-        backend=trace_ops.default_backend(),
     )
     u_delta = jnp.abs(us - res_rl.last_uv[:, 0])
     depth = 1.0 / jnp.where(idepth_stereo != 0, idepth_stereo, jnp.inf)
@@ -457,7 +455,7 @@ def _sequential_select(tb: TrackOut, last_rmse0, settings: Settings,
 def _best_select(tb: TrackOut, settings: Settings) -> TrackOut:
     """Best-of-residual selection with try-0 preference: try-0 wins when it
     is good (ok + saturation gate) and no other hypothesis strictly beats
-    it. TPU-native superset of the reference's sequential gating (see
+    it. A superset of the reference's sequential gating (see
     Settings.hypothesis_selection)."""
     res_all = tb.residuals[:, 0]
     ok_all = tb.ok & jnp.isfinite(res_all)

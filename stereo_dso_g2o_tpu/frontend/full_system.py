@@ -1,6 +1,6 @@
 """The full stereo direct-SLAM pipeline orchestrator.
 
-TPU-native rebuild of FullSystem (FullSystem/FullSystem.{h,cpp}): owns the
+JAX rebuild of FullSystem (FullSystem/FullSystem.{h,cpp}): owns the
 window state, immature point sets, coarse tracker and selector, and drives
 the per-frame pipeline:
 

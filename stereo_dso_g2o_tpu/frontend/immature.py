@@ -1,6 +1,6 @@
 """Immature point management: creation, tracing across frames, activation.
 
-TPU-native rebuild of the ImmaturePoint lifecycle (FullSystem::makeNewTraces
+JAX rebuild of the ImmaturePoint lifecycle (FullSystem::makeNewTraces
 :1600-1629, traceNewCoarseKey :745-781, traceNewCoarseNonKey :632-744,
 activatePointsMT :796-961 + optimizeImmaturePoint FullSystemOptPoint.cpp:52-240).
 
@@ -18,15 +18,15 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from stereo_dso_g2o_tpu.config import PATTERN, Settings, default_settings
 from stereo_dso_g2o_tpu.backend import window as W
 from stereo_dso_g2o_tpu.ops import trace as trace_ops
 from stereo_dso_g2o_tpu.ops.interp import bilinear
+from stereo_dso_g2o_tpu.utils.pytree import dataclass
 
 
-@struct.dataclass
+@dataclass
 class ImmatureSet:
     """[F, CAP] per-keyframe immature point arrays."""
 
@@ -114,7 +114,7 @@ def clear_slot(imm: ImmatureSet, slot) -> ImmatureSet:
     return imm.replace(valid=imm.valid.at[slot].set(False))
 
 
-@functools.partial(jax.jit, static_argnames=("settings", "backend"))
+@functools.partial(jax.jit, static_argnames=("settings",))
 def trace_on_frame(
     imm: ImmatureSet,
     KRKi,  # (F, 3, 3) host -> new-frame for every host slot
@@ -123,13 +123,10 @@ def trace_on_frame(
     dI_new,  # (H, W, 3)
     host_valid,  # (F,) bool
     settings: Settings = default_settings(),
-    backend: str = None,
 ) -> ImmatureSet:
     """traceNewCoarseKey: epipolar-trace every keyframe's immature points onto
     a new frame (FullSystem.cpp:745-781), all hosts' points in ONE flattened
     trace_batch call (per-point host transforms)."""
-    if backend is None:
-        backend = trace_ops.default_backend()
     flat, sel = _compact_live(imm, host_valid, settings)
     traced = trace_ops.trace_batch(
         flat["u"],
@@ -147,7 +144,6 @@ def trace_on_frame(
         aff[flat["host"]],
         dI_new,
         settings=settings,
-        backend=backend,
     )
     return _scatter_trace(imm, sel, traced)
 
@@ -495,7 +491,6 @@ def trace_on_nonkey(
     pool (settings.trace_cap) — the fixed (F, C) capacity holds ~4x more
     dead slots than live points in steady state."""
     F, C = imm.u.shape
-    backend = trace_ops.default_backend()
     flat, sel = _compact_live(imm, host_valid, settings)
     host = flat["host"]
 
@@ -504,7 +499,7 @@ def trace_on_nonkey(
         flat["color"], flat["weights"], flat["gradH"], flat["energy_th"],
         flat["quality"], flat["status"],
         KRKi[host], Kt[host], aff[host], dI_new,
-        settings=settings, backend=backend,
+        settings=settings,
     )
 
     good = flat["sel_ok"] & (traced.status == trace_ops.IPS_GOOD)
@@ -514,9 +509,8 @@ def trace_on_nonkey(
     # The L->R / R->L stereo refinement only applies to points whose
     # temporal trace came back GOOD this frame (the reference's :689-710
     # block runs under exactly that condition) — at steady state that is
-    # ~half the pool, and the epipolar kernel's cost is per-LANE
-    # (~3 us/lane on-chip, PERF.md round 5), so the GOOD subset is
-    # compacted to half-size lanes before the two stereo traces. Overflow
+    # ~half the pool, and the trace's cost is per lane, so the GOOD subset
+    # is compacted to half-size lanes before the two stereo traces. Overflow
     # rows (good count > NS, rare) keep their temporal result this frame.
     NS = max(min(n, settings.trace_cap // 2), 1)
     gidx = jnp.nonzero(good, size=NS, fill_value=-1)[0]
@@ -553,7 +547,7 @@ def trace_on_nonkey(
     res_lr, idepth_stereo = trace_ops.trace_stereo(
         u2, v2, id_min_proj, id_max_proj, color2, weights2, gradH2, eth2,
         fresh_q, fresh_st, K, baseline, dI_right,
-        mode_right=True, settings=settings, backend=backend,
+        mode_right=True, settings=settings,
     )
     stereo_good = res_lr.status == trace_ops.IPS_GOOD
 
@@ -566,7 +560,6 @@ def trace_on_nonkey(
         u3, v3, id_min_proj, id_max_proj, color3, weights3, gradH3, eth3,
         jnp.full((NS,), 10000.0), fresh_st,
         K, baseline, dI_new, mode_right=False, settings=settings,
-        backend=backend,
     )
 
     u_delta = jnp.abs(u2 - res_rl.last_uv[:, 0])
@@ -639,9 +632,11 @@ def insert_activated(
                        fill_value=-1)[0]
     ok = (src >= 0) & (free >= 0)
     src_safe = jnp.maximum(src, 0)
-    # scatter destination: valid inserts go to their free slot, the rest are
-    # parked at slot 0 with no-op writes masked by `ok`
-    dst = jnp.where(ok, free, 0)
+    # scatter destination: valid inserts go to their free slot, the rest to
+    # an out-of-range index that the scatter drops. Every written index is
+    # unique: a scatter with duplicate indices keeps an unspecified writer
+    # on the GPU, per array.
+    dst = jnp.where(ok, free, win.pt_status.shape[0])
 
     host = (src_safe // C).astype(jnp.int32)
     u = imm.u.reshape(-1)[src_safe]
@@ -653,11 +648,7 @@ def insert_activated(
     res_good = act.res_good.reshape(-1, F)[src_safe]
 
     def put(arr, vals):
-        cur = arr[dst]
-        masked = jnp.where(
-            ok.reshape((-1,) + (1,) * (vals.ndim - 1)), vals, cur
-        )
-        return arr.at[dst].set(masked)
+        return arr.at[dst].set(vals.astype(arr.dtype), mode="drop")
 
     win = win.replace(
         pt_status=put(win.pt_status, jnp.full((max_insert,), W.PT_ACTIVE, jnp.int32)),
@@ -680,7 +671,9 @@ def insert_activated(
     )
 
     # invalidate consumed (actually inserted) + dropped immature slots
-    inserted_flat = jnp.zeros((F * C,), bool).at[src_safe].set(ok)
+    inserted_flat = jnp.zeros((F * C,), bool).at[
+        jnp.where(ok, src_safe, F * C)
+    ].set(True, mode="drop")
     gone = inserted_flat.reshape(F, C) | act.dropped
     imm = imm.replace(valid=imm.valid & ~gone)
     n_inserted = jnp.sum(ok)

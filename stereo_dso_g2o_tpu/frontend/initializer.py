@@ -1,6 +1,6 @@
 """Mono coarse initializer: joint pose + per-point inverse-depth GN bootstrap.
 
-TPU-native rebuild of CoarseInitializer's monocular path
+JAX rebuild of CoarseInitializer's monocular path
 (CoarseInitializer.{h,cpp}: trackFrame:76-345, calcResAndGS:346-660,
 calcEC:660-688, optReg:690-731, propagateUp:733-776, propagateDown:778-811,
 resetPoints:1121-1147, doStep:1149-1196, applyStep:1198-1215, makeNN:1249+).
@@ -23,12 +23,12 @@ from typing import List, NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from stereo_dso_g2o_tpu.config import PATTERN, SCALE_A, SCALE_B, SCALE_XI_ROT, SCALE_XI_TRANS, Settings, default_settings
 from stereo_dso_g2o_tpu.models.camera import Calib
 from stereo_dso_g2o_tpu.ops.interp import bilinear
 from stereo_dso_g2o_tpu.utils import knn, se3
+from stereo_dso_g2o_tpu.utils.pytree import dataclass
 
 DENSITIES = (0.03, 0.05, 0.15, 0.5, 1.0)  # CoarseInitializer.cpp:860
 ALPHA_K = 2.5 * 2.5
@@ -45,7 +45,7 @@ WM = np.asarray(
 )
 
 
-@struct.dataclass
+@dataclass
 class InitLevel:
     """Fixed-capacity point set of one pyramid level (Pnt, .h:38-97)."""
 

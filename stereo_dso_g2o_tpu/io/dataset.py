@@ -1,6 +1,6 @@
 """KITTI-style stereo dataset reader.
 
-TPU-native rebuild of util/DatasetReader.h (ImageFolderReader:119-311): lists
+JAX rebuild of util/DatasetReader.h (ImageFolderReader:119-311): lists
 image files from `image_0` (left) / `image_1` (right) folders, reads
 `times.txt` (either plain timestamps or id/stamp/exposure triples,
 loadTimestamps:229-292), applies geometric + photometric undistortion, and

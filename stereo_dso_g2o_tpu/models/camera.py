@@ -1,6 +1,6 @@
 """Camera calibration state: the global per-level intrinsics pyramid + baseline.
 
-TPU-native equivalent of util/globalCalib.{h,cpp} (wG/hG/KG/KiG pyramid,
+Equivalent of util/globalCalib.{h,cpp} (wG/hG/KG/KiG pyramid,
 baseline:46) and the intrinsic part of CalibHessian (HessianBlocks.h:272-371).
 Per-level downscaling follows globalCalib.cpp:90-99:
     fx_l = fx_{l-1} * 0.5 ; cx_l = (cx_0 + 0.5) / 2^l - 0.5
@@ -17,17 +17,18 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from stereo_dso_g2o_tpu.utils.pytree import dataclass, static_field
 
 
-@struct.dataclass
+@dataclass
 class Calib:
     # value state (optimizable): fx, fy, cx, cy at level 0
     c: jax.Array  # (4,) float32
     baseline: jax.Array  # () float32 — stereo baseline [m] (globalCalib.h:46)
     # static geometry
-    w: Tuple[int, ...] = struct.field(pytree_node=False)  # per-level widths
-    h: Tuple[int, ...] = struct.field(pytree_node=False)  # per-level heights
+    w: Tuple[int, ...] = static_field()  # per-level widths
+    h: Tuple[int, ...] = static_field()  # per-level heights
 
     @property
     def n_levels(self) -> int:

@@ -1,6 +1,6 @@
 """Geometric rectification + photometric calibration.
 
-TPU-native rebuild of util/Undistort.{h,cpp}: the five camera models
+JAX rebuild of util/Undistort.{h,cpp}: the five camera models
 (FOV/ATAN, RadTan, Equidistant, Kannala-Brandt, Pinhole;
 Undistort.cpp:974-1240), calib-file parsing (5-line format incl. the stereo
 baseline, :840-905), crop/full/none output-K modes (makeOptimalK_crop), remap

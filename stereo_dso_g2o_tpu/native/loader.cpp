@@ -1,7 +1,7 @@
 // Native stereo frame loader: threaded PNG/JPEG decode + geometric remap +
 // photometric correction + bounded in-order prefetch.
 //
-// TPU-native runtime equivalent of the reference's C++ data path:
+// Native runtime equivalent of the reference's C++ data path:
 //   - util/DatasetReader.h (ImageFolderReader::getImage :200-226)
 //   - IOWrapper/OpenCV/ImageRW_OpenCV.cpp (8/16-bit PNG read)
 //   - util/Undistort.cpp remap application (Undistort::undistortGeneric)

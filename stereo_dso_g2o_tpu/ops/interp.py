@@ -1,6 +1,6 @@
 """Batched bilinear image sampling.
 
-TPU-native replacement for the reference's scalar interpolation family
+JAX replacement for the reference's scalar interpolation family
 (util/globalFuncs.h:39-130: getInterpolatedElement31/33). The reference formula
 uses floor-anchored bilinear weights:
 
@@ -25,9 +25,8 @@ def bilinear(img, x, y):
     Returns (...,) or (..., C).
 
     The 2x2 neighbourhood is fetched as ONE XLA gather (advanced indexing
-    with broadcast offsets). On TPU this lowers ~30x faster than a vmapped
-    dynamic_slice and ~10x faster than four separate corner gathers — the
-    gather unit amortizes the (2, 2[, C]) trailing block per index row.
+    with broadcast offsets), not a vmapped dynamic_slice or four separate
+    corner gathers.
     """
     H, W = img.shape[0], img.shape[1]
     x = jnp.clip(x, 0.0, W - 1.001)

@@ -1,6 +1,6 @@
 """Gradient-histogram pixel selection.
 
-TPU-native rebuild of PixelSelector2 (FullSystem/PixelSelector2.{h,cpp}):
+JAX rebuild of PixelSelector2 (FullSystem/PixelSelector2.{h,cpp}):
 
 - per-32x32-block gradient histograms -> `below`-quantile threshold + additive
   offset, 3x3 smoothed and squared (makeHists, PixelSelector2.cpp:84-178)

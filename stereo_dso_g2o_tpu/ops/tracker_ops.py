@@ -1,6 +1,6 @@
 """Coarse-tracker kernels: reference idepth maps + direct image alignment.
 
-TPU-native rebuild of CoarseTracker (FullSystem/CoarseTracker.{h,cpp}):
+JAX rebuild of CoarseTracker (FullSystem/CoarseTracker.{h,cpp}):
 
 - `build_ref_maps`: weighted point splat at level 0, sum-pooling up the
   pyramid, 2-phase dilation (diagonal on levels 0-1, 4-neighbour above),
@@ -192,7 +192,7 @@ class ResStats(NamedTuple):
 def _bilinear3(dI, x, y):
     """Bilinear sample of an (H, W, 3) pyramid level at (x, y) — the whole
     2x2x3 neighbourhood of every point in ONE XLA gather (broadcast advanced
-    indexing; ~30x faster on TPU than a vmapped dynamic_slice)."""
+    indexing, not a vmapped dynamic_slice)."""
     H, W = dI.shape[:2]
     x = jnp.clip(x, 0.0, W - 1.001)
     y = jnp.clip(y, 0.0, H - 1.001)

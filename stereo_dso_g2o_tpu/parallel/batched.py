@@ -15,7 +15,7 @@ Three dispatch modes (`kf_mode`):
   happens one step late, when the track program has already finished, so
   the host never idles the device on a blocking sync (VERDICT r4 weak #1:
   the gated mode's per-frame fetch serialized host and device at ~1 s per
-  4-seq frame). TPU-native analog of the reference's track/map handoff
+  4-seq frame). JAX analog of the reference's track/map handoff
   running one frame behind (FullSystem.cpp:1168-1221) — with zero
   staleness, because the handoff completes before the next track runs.
 - "gated": same split, but need_kf is fetched synchronously within the

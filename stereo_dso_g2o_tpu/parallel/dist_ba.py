@@ -6,12 +6,12 @@ AccumulatedTopHessian.cpp:201-229) — exactly an all-reduce. Here the point
 axis (and with it the residual cube and all Jacobian tensors) is sharded over
 a device mesh with `shard_map`; each device linearizes its local points and
 builds partial pair-block sums, the reduced (CPARS+8F)^2 camera system is
-`psum`-ed over ICI, the tiny dense solve is replicated, and the idepth
+`psum`-ed across devices, the tiny dense solve is replicated, and the idepth
 back-substitution is purely local again. Keyframe state, images and the
 marginal prior stay replicated.
 
 This lets the window (points per keyframe, and with a larger F the keyframe
-count itself) scale past one chip's comfort zone while the per-iteration
+count itself) scale past one device while the per-iteration
 collective is a single (68x68 + 68) float32 all-reduce.
 """
 

@@ -1,7 +1,7 @@
 """Data-parallel multi-sequence execution over a device mesh.
 
 The reference is a single-process CPU program (SURVEY.md par. 2 parallelism
-inventory); its TPU-native scale-out axis #1 (BASELINE config 4) is trivial
+inventory); its scale-out axis #1 (BASELINE config 4) is trivial
 data parallelism: many KITTI sequences tracked simultaneously, one (or more)
 per chip. Because all engine state is fixed-capacity pytrees, this is plain
 `shard_map` over a leading sequence axis with no cross-device communication in

@@ -1,7 +1,7 @@
 """Mid-run checkpoint / resume.
 
 The reference has NO state persistence — its only artifact is the final
-trajectory file (SURVEY.md par. 5: "TPU build: jittable state pytree makes
+trajectory file (SURVEY.md par. 5: "JAX build: jittable state pytree makes
 checkpointing nearly free — worth adding"). Because all device state is two
 fixed-capacity pytrees (Window + ImmatureSet) plus small host metadata, a
 checkpoint is a single npz + a pickle, and resume is exact: the restored

@@ -2,7 +2,7 @@
 
 The reference's data path is native C++ (util/DatasetReader.h getImage
 :200-226, IOWrapper OpenCV PNG read, Undistort remap); this module builds and
-binds the TPU-runtime equivalent: a worker-threaded PNG/JPEG decoder with
+binds the runtime equivalent: a worker-threaded PNG/JPEG decoder with
 geometric remap + photometric correction and a bounded in-order prefetch
 queue, so host image I/O overlaps the device pipeline.
 

@@ -136,6 +136,21 @@ def inverse(T):
     return rt_to_mat(Rt, -jnp.einsum("...ij,...j->...i", Rt, t))
 
 
+def orthonormalize(T, iters: int = 2):
+    """Project T's rotation block back onto SO(3) (Newton-Schulz polar
+    iteration R <- R (3I - R^T R) / 2, quadratic near an orthonormal R).
+
+    Poses built from f32 products drift off SO(3) by rounding, and the
+    rigid inverse (R^T for R^-1) turns a scale error S into S^2 on every
+    pass through the motion model, so an unprojected drift compounds from
+    keyframe to keyframe."""
+    R = T[..., :3, :3]
+    eye = jnp.eye(3, dtype=T.dtype)
+    for _ in range(iters):
+        R = R @ (1.5 * eye - 0.5 * jnp.swapaxes(R, -1, -2) @ R)
+    return T.at[..., :3, :3].set(R)
+
+
 def compose(A, B):
     return A @ B
 

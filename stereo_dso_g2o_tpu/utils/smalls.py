@@ -1,9 +1,10 @@
-"""Small fixed-size linear algebra, unrolled for TPU.
+"""Small fixed-size linear algebra, unrolled.
 
-`jnp.linalg.solve` on an 8x8 lowers to a general LU path that costs ~2 ms of
-kernel latency per call on TPU — serialized inside the tracker's LM
-while_loop that latency dominates the whole coarse-tracking cascade
+`jnp.linalg.solve` on an 8x8 lowers to a general LU path: a factorization
+kernel per call, serialized inside the tracker's LM while_loop
 (CoarseTracker.cpp:966: the reference just calls Eigen's ldlt on the stack).
+Whether that still costs more than the unrolled form on the GPU is not
+measured yet.
 These unrolled Cholesky routines compile to one fused elementwise chain
 instead: no factorization kernel, no pivoting, ~n^3/3 scalar FMAs.
 

@@ -2,8 +2,8 @@
 
 The reference self-reports per-run fps/ms and per-stage ms deques
 (main_dso_pangolin.cpp:523-555, PangolinDSOViewer.h:130-136, SURVEY.md par.5
-tracing). This module provides the same per-stage breakdown for the TPU
-pipeline: named sections accumulate wall time; sections can force a device
+tracing). This module provides the same per-stage breakdown for the
+device pipeline: named sections accumulate wall time; sections can force a device
 sync on a result pytree so async dispatch doesn't hide where time goes.
 
 Enable with SDSO_PROFILE=1 (sections then sync + accumulate) or use

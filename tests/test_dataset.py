@@ -164,7 +164,9 @@ def test_cli_end_to_end(kitti_dir, tmp_path):
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "run_odometry", "/root/repo/run_odometry.py"
+        "run_odometry",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "run_odometry.py"),
     )
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)

@@ -129,7 +129,7 @@ def test_distributed_ba_enlarged_window():
     8192 points, all-pairs residual cube = 8192x16), shard the point axis
     over the 8-device mesh, and require equivalence with the single-device
     iteration. Per-iteration wall time for both paths is printed (the virtual
-    mesh shares host cores, so it measures overhead, not ICI speedup —
+    mesh shares host cores, so it measures overhead, not interconnect speedup —
     scaling model in PERF.md)."""
     import time
 
@@ -275,5 +275,5 @@ def test_big_window_system_runs_with_dist_ba():
     assert ate_d < max(3.0 * ate_s, 0.02), (ate_d, ate_s)
     print(f"\nbig-window F=16: dist(8 virt) per-KF median "
           f"{np.median(t_d):.3f}s vs single {np.median(t_s):.3f}s "
-          f"(shared-core virtual mesh measures overhead, not ICI speedup); "
+          f"(shared-core virtual mesh measures overhead, not interconnect speedup); "
           f"ate_d={ate_d*1000:.1f}mm ate_s={ate_s*1000:.1f}mm")

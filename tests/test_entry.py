@@ -1,5 +1,5 @@
 import importlib.util
-import sys
+import os
 
 import jax
 import numpy as np
@@ -7,7 +7,9 @@ import numpy as np
 
 def _load_entry():
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py"
+        "__graft_entry__",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "__graft_entry__.py"),
     )
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

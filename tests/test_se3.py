@@ -66,3 +66,32 @@ def test_apply(rng):
         T[:, :3, 3]
     )
     np.testing.assert_allclose(np.asarray(out), expect, atol=1e-5)
+
+
+def test_orthonormalize_projects_onto_so3():
+    """A rotation block off SO(3) by a few 1e-3 (the drift f32 pose chains
+    reach when the rigid inverse squares a scale error) is projected back to
+    f32 rounding; translation and exact rotations pass unchanged."""
+    from stereo_dso_g2o_tpu.backend import builder, window as W
+
+    rng = np.random.default_rng(3)
+    xi = jnp.asarray(rng.normal(0, 0.3, (4, 6)), jnp.float32)
+    T = se3.se3_exp(xi)
+    S = jnp.eye(3) + jnp.asarray(rng.normal(0, 3e-3, (4, 3, 3)), jnp.float32)
+    drifted = T.at[:, :3, :3].set(T[:, :3, :3] @ S)
+    P = np.asarray(se3.orthonormalize(drifted), np.float64)
+    R = P[:, :3, :3]
+    err = np.abs(np.swapaxes(R, 1, 2) @ R - np.eye(3)).max()
+    assert err < 1e-6, err
+    np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-6)
+    np.testing.assert_array_equal(P[:, :3, 3], np.asarray(drifted)[:, :3, 3])
+    # the projection is the nearest rotation: close to the undrifted one
+    np.testing.assert_allclose(R, np.asarray(T)[:, :3, :3], atol=2e-2)
+    np.testing.assert_allclose(
+        np.asarray(se3.orthonormalize(T)), np.asarray(T), atol=1e-6
+    )
+    # a keyframe's FEJ pose enters the window on SO(3)
+    win = W.empty_window(2, 4, [100.0, 100.0, 50.0, 30.0])
+    win = builder.insert_frame(win, 1, drifted[0], (0.0, 0.0), 1.0, 0)
+    R1 = np.asarray(win.evalPT[1, :3, :3], np.float64)
+    assert np.abs(R1.T @ R1 - np.eye(3)).max() < 1e-6

@@ -1,7 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from stereo_dso_g2o_tpu.config import default_settings
+from stereo_dso_g2o_tpu.config import PATTERN, default_settings
 from stereo_dso_g2o_tpu.io import synthetic
 from stereo_dso_g2o_tpu.ops import trace as trace_ops
 from stereo_dso_g2o_tpu.ops.pyramid import build_pyramid
@@ -172,92 +173,6 @@ def test_trace_temporal_translation():
     assert np.median(err) < 0.05, np.median(err)
 
 
-def test_trace_pallas_matches_xla():
-    """The VMEM slab kernel (interpret mode on CPU) must agree with the XLA
-    gather formulation: same status machine, same best positions to within
-    bf16 sampling noise. Regression guard for the round-1 NN-vs-bilinear
-    deviation (VERDICT weak #7): both paths are bilinear now."""
-    scene = synthetic.default_scene(5)
-    w, h, b = 256, 128, 0.15
-    K = synthetic.default_K(w, h)
-    left0, _, idepth0 = synthetic.render_stereo_pair(scene, K, w, h, b)
-    T = np.eye(4)
-    T[:3, 3] = [0.12, 0.04, 0.08]
-    left1, _ = synthetic.render(scene, K, w, h, T)
-    dIp0, _ = build_pyramid(jnp.asarray(left0), 4)
-    dIp1, _ = build_pyramid(jnp.asarray(left1), 4)
-    us, vs = _grid_points(w, h, margin=25, step=13)
-    n = len(us)
-    color, weights, gradH, eth = trace_ops.extract_point_data(
-        dIp0[0], jnp.asarray(us), jnp.asarray(vs), SET
-    )
-    Kj = jnp.asarray(K, dtype=jnp.float32)
-    KRKi = Kj @ jnp.asarray(T[:3, :3], jnp.float32) @ jnp.linalg.inv(Kj)
-    Kt = Kj @ jnp.asarray(T[:3, 3], jnp.float32)
-    args = (
-        jnp.asarray(us), jnp.asarray(vs),
-        jnp.zeros(n, jnp.float32), jnp.full(n, jnp.nan, jnp.float32),
-        color, weights, gradH, eth,
-        jnp.full(n, 10000.0, jnp.float32),
-        jnp.full(n, trace_ops.IPS_UNINITIALIZED, jnp.int32),
-        KRKi, Kt, jnp.asarray([1.0, 0.0], dtype=jnp.float32), dIp1[0],
-    )
-    rx = trace_ops.trace(*args, settings=SET, backend="xla")
-    rp = trace_ops.trace(*args, settings=SET, backend="pallas")
-    st_x = np.asarray(rx.status)
-    st_p = np.asarray(rp.status)
-    # statuses agree except where bf16 ties flip a marginal gate
-    assert (st_x == st_p).mean() > 0.9, (st_x, st_p)
-    both_good = (st_x == trace_ops.IPS_GOOD) & (st_p == trace_ops.IPS_GOOD)
-    assert both_good.sum() > 10
-    du = np.abs(np.asarray(rx.last_uv) - np.asarray(rp.last_uv))[both_good]
-    assert np.median(du) < 0.1, np.median(du)
-    dmin = np.abs(np.asarray(rx.idepth_min) - np.asarray(rp.idepth_min))
-    rel = dmin[both_good] / np.maximum(np.asarray(rx.idepth_min)[both_good], 1e-3)
-    assert np.median(rel) < 0.05, np.median(rel)
-
-
-def test_trace_stereo_pallas_matches_xla():
-    """The stereo trace through the slab kernel (horizontal special case,
-    interpret mode on CPU) must agree with the strip-slice XLA formulation."""
-    scene = synthetic.default_scene(6)
-    w, h, b = 256, 128, 0.2
-    K = synthetic.default_K(w, h)
-    left, right, idepth = synthetic.render_stereo_pair(scene, K, w, h, b)
-    dIl, _ = build_pyramid(jnp.asarray(left), 4)
-    dIr, _ = build_pyramid(jnp.asarray(right), 4)
-    us, vs = _grid_points(w, h, margin=25, step=13)
-    n = len(us)
-    color, weights, gradH, eth = trace_ops.extract_point_data(
-        dIl[0], jnp.asarray(us), jnp.asarray(vs), SET
-    )
-    Kj = jnp.asarray(K, dtype=jnp.float32)
-    args = (
-        jnp.asarray(us), jnp.asarray(vs),
-        jnp.zeros(n, jnp.float32), jnp.full(n, jnp.nan, jnp.float32),
-        color, weights, gradH, eth,
-        jnp.full(n, 10000.0, jnp.float32),
-        jnp.full(n, trace_ops.IPS_UNINITIALIZED, jnp.int32),
-        Kj, jnp.float32(b), dIr[0],
-    )
-    rx, idx_x = trace_ops.trace_stereo(
-        *args, mode_right=True, settings=SET, backend="xla"
-    )
-    rp, idx_p = trace_ops.trace_stereo(
-        *args, mode_right=True, settings=SET, backend="pallas"
-    )
-    st_x = np.asarray(rx.status)
-    st_p = np.asarray(rp.status)
-    assert (st_x == st_p).mean() > 0.9, (st_x, st_p)
-    both_good = (st_x == trace_ops.IPS_GOOD) & (st_p == trace_ops.IPS_GOOD)
-    assert both_good.sum() > 10
-    du = np.abs(np.asarray(rx.last_uv[:, 0]) - np.asarray(rp.last_uv[:, 0]))
-    assert np.median(du[both_good]) < 0.1, np.median(du[both_good])
-    did = np.abs(np.asarray(idx_x) - np.asarray(idx_p))[both_good]
-    rel = did / np.maximum(np.abs(np.asarray(idx_x))[both_good], 1e-3)
-    assert np.median(rel) < 0.05, np.median(rel)
-
-
 def test_trace_compaction_overflow_keeps_rows():
     """When live rows exceed trace_cap, overflow rows must keep their state
     (no corruption) while in-budget rows trace normally."""
@@ -315,65 +230,197 @@ def test_trace_compaction_overflow_keeps_rows():
     assert np.isnan(np.asarray(part.idepth_max).reshape(-1)[96:]).all()
 
 
-def test_split_precision_dots_are_f32_accurate():
-    """The kernel's hi/lo bf16 split dots (`_dot_bf16x3`, `_dot_exact_rhs`)
-    must stay within ~0.01 gray of the exact product on image-valued
-    operands. Mosaic only exposes DEFAULT (one bf16 pass) and HIGHEST (six
-    passes); the split recovers f32-class accuracy at DEFAULT-pass cost —
-    single-pass bf16 was the round-3 accuracy bug (~0.5-1 gray per sample,
-    4x rel-rot blowup, PERF.md round 4). On CPU the DEFAULT-precision dots
-    run in full f32, so this check covers the hi-term numerics (exact
-    either way) but NOT the on-chip bf16 truncation of the al/bl residual
-    operands in the cross terms — the second-order error model below
-    round-trips those residuals through bf16 to bound that part too."""
-    from stereo_dso_g2o_tpu.ops import trace_pallas as tk
+# ---------------------------------------------------------------------------
+# float64 NumPy reference of the discrete search + GN refinement
 
-    rng = np.random.default_rng(7)
-    R, C, SP = 64, 256, 368
-    slab = jnp.asarray(rng.uniform(0.0, 255.0, (R, C)).astype(np.float32))
-    sx = rng.uniform(4, C - 5, SP).astype(np.float32)
-    wc = jnp.asarray(
-        np.maximum(
-            0.0, 1.0 - np.abs(sx[None, :] - np.arange(C, dtype=np.float32)[:, None])
+
+def _bilin64(img, x, y):
+    """Bilinear sample with the engine's clamp (ops/interp.py), float64."""
+    H, W = img.shape[:2]
+    x = min(max(x, 0.0), W - 1.001)
+    y = min(max(y, 0.0), H - 1.001)
+    ix, iy = int(np.floor(x)), int(np.floor(y))
+    fx, fy = x - ix, y - iy
+    return ((1 - fx) * (1 - fy) * img[iy, ix] + fx * (1 - fy) * img[iy, ix + 1]
+            + (1 - fx) * fy * img[iy + 1, ix] + fx * fy * img[iy + 1, ix + 1])
+
+
+def _huber_energy(r, th):
+    hw = 1.0 if abs(r) < th else th / abs(r)
+    return hw, hw * r * r * (2.0 - hw)
+
+
+def _ref_search_gn(dI, ptx, pty, dx, dy, num_steps, pat, color, weights,
+                   aff, s):
+    """One point's discrete epipolar search (Huber pattern energy, argmin,
+    second best outside the test radius) and its 1-dof GN refinement
+    (ImmaturePoint.cpp:610-769), as a plain loop in float64.
+
+    Returns (best_u, best_v, best_energy, quality)."""
+    a, b = aff
+    energies = []
+    for k in range(num_steps):
+        e = 0.0
+        for p in range(8):
+            hit = _bilin64(dI[..., 0], ptx + k * dx + pat[p, 0],
+                           pty + k * dy + pat[p, 1])
+            e += _huber_energy(hit - (a * color[p] + b), s.huber_th)[1]
+        energies.append(e)
+    best = int(np.argmin(energies))
+    outside = [e for k, e in enumerate(energies)
+               if abs(k - best) > s.min_trace_test_radius]
+    quality = min(outside, default=np.inf) / max(energies[best], 1e-20)
+
+    bu, bv = ptx + best * dx, pty + best * dy
+    u_bak, v_bak, step_back, best_e = bu, bv, 0.0, 1e5
+    for _ in range(s.trace_gn_iterations):
+        Hgn, bgn, energy = 1.0, 0.0, 0.0
+        for p in range(8):
+            hit = _bilin64(dI, bu + pat[p, 0], bv + pat[p, 1])
+            r = hit[0] - (a * color[p] + b)
+            d = dx * hit[1] + dy * hit[2]
+            hw, e = _huber_energy(r, s.huber_th)
+            Hgn += hw * d * d
+            bgn += hw * r * d
+            energy += weights[p] ** 2 * e
+        if energy > best_e:  # worse: halve the step, retreat from backup
+            step_back *= 0.5
+            bu, bv = u_bak + step_back * dx, v_bak + step_back * dy
+        else:  # better: clamped GN step from here
+            step = float(np.clip(-bgn / Hgn, -0.5, 0.5))
+            step = step if np.isfinite(step) else 0.0
+            u_bak, v_bak = bu, bv
+            bu, bv = bu + step * dx, bv + step * dy
+            step_back, best_e = step, energy
+        if abs(step_back) < s.trace_gn_threshold:
+            break
+    return bu, bv, best_e, quality
+
+
+def _ref_segment(mode, u, v, Kt, w, h, s):
+    """Search start, unit step and step count of a fresh point (interval
+    [0, inf)) with identity KRKi (temporal) or a rectified pair (stereo)."""
+    mps = (w + h) * s.max_pix_search
+    if mode == "temporal":
+        ud = (u + Kt[0] * 0.01) / (1.0 + Kt[2] * 0.01)
+        vd = (v + Kt[1] * 0.01) / (1.0 + Kt[2] * 0.01)
+        n = np.hypot(ud - u, vd - v)
+        dx, dy = (ud - u) / n, (vd - v) / n
+    else:
+        dx, dy = (-1.0 if mode == "stereo_lr" else 1.0), 0.0
+    S = min(s.trace_max_steps, int(np.ceil(mps / s.trace_stepsize)) + 3)
+    num_steps = min(int(1.9999 + mps / s.trace_stepsize), S - 1)
+    shift = u * 1000.0 - np.floor(u * 1000.0)
+    return u - shift * dx, v - shift * dy, dx, dy, num_steps
+
+
+@pytest.mark.parametrize("mode", ["temporal", "stereo_lr", "stereo_rl"])
+def test_trace_matches_float64_reference(mode):
+    """The XLA trace (search + GN) against a float64 NumPy loop on fresh
+    points whose whole search stays inside the image. Coordinates are
+    quarter pixels, so u*1000 is exact in f32 and both sides start the
+    search at the same sub-pixel shift."""
+    scene = synthetic.default_scene(5)
+    w, h, b = 256, 128, 0.15
+    K = synthetic.default_K(w, h)
+    left0, right0, _ = synthetic.render_stereo_pair(scene, K, w, h, b)
+    T = np.eye(4)
+    T[:3, 3] = [0.15, 0.05, 0.1]
+    left1, _ = synthetic.render(scene, K, w, h, T)
+
+    def dI(img):
+        return build_pyramid(jnp.asarray(img, jnp.float32), 1)[0][0]
+
+    host, target = {
+        "temporal": (left0, left1),
+        "stereo_lr": (left0, right0),
+        "stereo_rl": (right0, left0),
+    }[mode]
+    dI_h, dI_t = dI(host), dI(target)
+    ys, xs = np.mgrid[24 : h - 24 : 5, 24 : w - 24 : 5]
+    us = (xs.ravel() + 0.25 * (np.arange(xs.size) % 4)).astype(np.float32)
+    vs = (ys.ravel() + 0.25 * (np.arange(ys.size) % 3)).astype(np.float32)
+    n = us.size
+    color, weights, gradH, eth = trace_ops.extract_point_data(
+        dI_h, jnp.asarray(us), jnp.asarray(vs), SET
+    )
+    args = (
+        jnp.asarray(us), jnp.asarray(vs),
+        jnp.zeros(n, jnp.float32), jnp.full(n, jnp.nan, jnp.float32),
+        color, weights, gradH, eth,
+        jnp.full(n, 10000.0, jnp.float32),
+        jnp.full(n, trace_ops.IPS_UNINITIALIZED, jnp.int32),
+    )
+    Kj = jnp.asarray(K, jnp.float32)
+    Kt = np.asarray(Kj @ jnp.asarray(T[:3, 3], jnp.float32), np.float64)
+    if mode == "temporal":
+        res = trace_ops.trace(
+            *args, jnp.eye(3, dtype=jnp.float32), jnp.asarray(Kt, jnp.float32),
+            jnp.asarray([1.0, 0.0], jnp.float32), dI_t, settings=SET,
         )
-    )
-    exact = np.asarray(slab, np.float64) @ np.asarray(wc, np.float64)
-    got = np.asarray(tk._dot_bf16x3(slab, wc))
-    assert np.abs(got - exact).max() < 0.01, np.abs(got - exact).max()
-
-    # single-pass bf16 (what DEFAULT would do) must be measurably WORSE —
-    # guards against the helper silently degenerating to one pass
-    one_pass = np.asarray(
-        jnp.dot(
-            slab.astype(jnp.bfloat16).astype(jnp.float32).astype(jnp.bfloat16),
-            wc.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32,
+    else:
+        res, _ = trace_ops.trace_stereo(
+            *args, Kj, jnp.float32(b), dI_t,
+            mode_right=mode == "stereo_lr", settings=SET,
         )
+
+    dI64 = np.asarray(dI_t, np.float64)
+    color64 = np.asarray(color, np.float64)
+    weights64 = np.asarray(weights, np.float64)
+    good = np.flatnonzero(np.asarray(res.status) == trace_ops.IPS_GOOD)
+    assert good.size > 0.3 * n, (good.size, n)
+    last_uv = np.asarray(res.last_uv, np.float64)
+    best_e = np.asarray(res.best_energy, np.float64)
+    quality = np.asarray(res.quality, np.float64)
+    agree = []
+    for i in good:
+        ptx, pty, dx, dy, ns = _ref_segment(mode, float(us[i]), float(vs[i]),
+                                            Kt, w, h, SET)
+        bu, bv, be, q = _ref_search_gn(
+            dI64, ptx, pty, dx, dy, ns, PATTERN.astype(np.float64),
+            color64[i], weights64[i], (1.0, 0.0), SET,
+        )
+        agree.append(
+            abs(last_uv[i, 0] - bu) < 1e-3 and abs(last_uv[i, 1] - bv) < 1e-3
+            and abs(best_e[i] - be) <= 1e-3 * max(be, 1.0)
+            and (q == quality[i] or abs(q - quality[i]) <= 1e-3 * q)
+        )
+    # a discrete argmin may flip on a near-tie between f32 and f64 sums
+    assert np.mean(agree) >= 0.98, np.mean(agree)
+
+
+def test_insert_activated_writes_each_slot_once():
+    """Accepted immature points land in free point slots, slot 0 included,
+    and no other slot changes: every scatter index is unique (the GPU keeps
+    an unspecified writer among duplicates)."""
+    from stereo_dso_g2o_tpu.backend import window as W
+    from stereo_dso_g2o_tpu.frontend import immature as IMM
+
+    F, C, NP = 2, 8, 16
+    win = W.empty_window(F, NP, [100.0, 100.0, 50.0, 30.0])
+    # slots 1..5 hold active points; 0 and 6.. are free
+    win = win.replace(pt_status=win.pt_status.at[1:6].set(W.PT_ACTIVE),
+                      pt_u=win.pt_u.at[1:6].set(7.0))
+    imm = IMM.empty(F, C)
+    imm = imm.replace(
+        valid=imm.valid.at[:, :3].set(True),
+        u=jnp.broadcast_to(jnp.arange(C, dtype=jnp.float32) + 10.0, (F, C)),
     )
-    assert np.abs(one_pass - exact).max() > 0.1
-
-    # on-chip error model: DEFAULT also truncates the al/bl RESIDUAL
-    # operands of the cross terms to bf16 (CPU runs them in full f32).
-    # Simulate that truncation explicitly and verify the result is still
-    # inside the same accuracy bound — i.e. the extra on-chip error is
-    # second-order, not a reappearance of the one-pass bug.
-    def bf16(x):
-        return jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)
-
-    ah, bh = bf16(slab), bf16(wc)
-    al_t, bl_t = bf16(slab - ah), bf16(wc - bh)  # <- the on-chip truncation
-    tpu_model = np.asarray(ah @ bh + ah @ bl_t + al_t @ bh)
-    assert np.abs(tpu_model - exact).max() < 0.01, np.abs(tpu_model - exact).max()
-
-    # selection-matrix variant: exact 0/1 rhs
-    a = jnp.asarray(rng.uniform(-300.0, 300.0, (1, 8)).astype(np.float32))
-    E = jnp.asarray(
-        (rng.integers(0, 2, (8, SP))).astype(np.float32)
+    accepted = jnp.zeros((F, C), bool).at[0, 1].set(True).at[1, 2].set(True)
+    act = IMM.ActivationResult(
+        idepth=jnp.full((F, C), 0.5, jnp.float32),
+        accepted=accepted,
+        dropped=jnp.zeros((F, C), bool),
+        res_good=jnp.ones((F, C, F), bool),
     )
-    exact2 = np.asarray(a, np.float64) @ np.asarray(E, np.float64)
-    got2 = np.asarray(tk._dot_exact_rhs(a, E))
-    # f32-class: the only error left is f32 accumulation-order rounding,
-    # so normalize by the cancellation-free magnitude sum, not the result
-    mag = np.abs(np.asarray(a, np.float64)) @ np.asarray(E, np.float64)
-    rel = np.abs(got2 - exact2) / np.maximum(mag, 1.0)
-    assert rel.max() < 1e-5, rel.max()
+    win2, imm2, n = IMM.insert_activated(win, imm, act, max_insert=4)
+    assert int(n) == 2
+    st = np.asarray(win2.pt_status)
+    assert st[0] == W.PT_ACTIVE and st[6] == W.PT_ACTIVE
+    np.testing.assert_array_equal(np.asarray(win2.pt_u)[[0, 6]], [11.0, 12.0])
+    np.testing.assert_array_equal(np.asarray(win2.pt_host)[[0, 6]], [0, 1])
+    np.testing.assert_array_equal(st[7:], W.PT_INACTIVE)
+    np.testing.assert_array_equal(np.asarray(win2.pt_u)[1:6], 7.0)
+    valid = np.asarray(imm2.valid)
+    assert not valid[0, 1] and not valid[1, 2]
+    assert valid[0, 0] and valid[1, 0] and valid[0, 2]
